@@ -1,6 +1,6 @@
-"""Cookbook: scaling inference over a TPU mesh.
+"""Cookbook: scaling inference over a device mesh.
 
-Run with real TPU devices, or on CPU with
+Run on GPUs, or on CPU with
 `XLA_FLAGS=--xla_force_host_platform_device_count=8` for a virtual mesh.
 """
 
@@ -75,11 +75,11 @@ def main():
     assert jnp.abs(pooled_lml(lmls) - exact) < 0.1
     col = jax.jit(islands.maybe_resample)(jax.random.key(4), col)
 
-    # --- lane-packing: many small-D problems in one SVGD transport ---
-    # The MXU's native tile is 128 lanes; a D=16 posterior pads every
-    # Stein contraction ~4-8x. packed_svgd runs C same-shaped problems
-    # (folds / groups / replicates) as ONE joint transport on the
-    # product target — at C*D = 128 the matmuls are unpadded, and each
+    # --- feature-packing: many small-D problems in one SVGD transport ---
+    # A D=16 posterior gives each Stein contraction only 16-33 columns.
+    # packed_svgd runs C same-shaped problems (folds / groups /
+    # replicates) as ONE joint transport on the product target — at
+    # C*D = 128 the matmuls are 128 wide, and each
     # problem's marginal is still its own posterior (oracle-certified in
     # tests/inference/test_svgd.py). Here: two conjugate problems with
     # opposite observations, recovered in one transport.
@@ -102,7 +102,7 @@ def main():
     m1 = jnp.mean(packed_traces[1].get_choices()["mu"])  # -> -1.0
     assert jnp.abs(m0 - 1.0) < 0.15 and jnp.abs(m1 + 1.0) < 0.15
 
-    print("tpu scaling cookbook OK")
+    print("mesh scaling cookbook OK")
 
 
 if __name__ == "__main__":

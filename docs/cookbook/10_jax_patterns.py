@@ -1,7 +1,7 @@
-"""Cookbook: JAX patterns for probabilistic programs on TPU.
+"""Cookbook: JAX patterns for probabilistic programs on an accelerator.
 
 Mirrors the reference cookbook's JAX-basics notes (active/jax_basics.ipynb
-topics), TPU-first: jit/vmap/scan discipline, PRNG keys, static vs traced
+topics), accelerator-first: jit/vmap/scan discipline, PRNG keys, static vs traced
 values (`Const`), the kwargs path, and the opt-in `checked_mode` for
 catching call mistakes early.
 """
@@ -73,7 +73,7 @@ def main():
         except TypeError as e:
             assert "ChoiceMap" in str(e)
 
-    # --- everything composes: jit(vmap(generate)) on TPU ---
+    # --- everything composes: jit(vmap(generate)) on an accelerator ---
     constraint = ChoiceMap.kw(xs=jnp.zeros(8))
 
     @jax.jit

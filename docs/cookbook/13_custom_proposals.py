@@ -73,7 +73,7 @@ def main():
 
     # --- mapping inference over data ----------------------------------------
     # Targets are pytrees, so a *batch of inference problems* is one
-    # vmapped call — the TPU-friendly way to amortize across observations.
+    # vmapped call — the accelerator-friendly way to amortize across observations.
     ys = jnp.linspace(-2.0, 2.0, 8)
 
     def infer_one(key, y):

@@ -35,8 +35,8 @@ def main():
 
     # The whole 100-sweep chain is ONE jitted lax.scan: three dense
     # blocks per sweep — an (N, K) density matrix for assignments,
-    # segment-sums for the sufficient statistics — exactly the shapes a
-    # TPU wants.
+    # segment-sums for the sufficient statistics — exactly the shapes an
+    # accelerator wants.
 
     chm = trace.get_choices()
     means = jnp.sort(chm["means"])

@@ -3,7 +3,7 @@ HMC, convergence diagnostics, and particle marginal MH.
 
 These are capabilities beyond the reference (genjax-community/genjax
 ships raw HMC with a user-chosen step size and no diagnostics): the
-many-chain layout this framework runs on TPU makes the full Stan-style
+many-chain layout this framework runs on an accelerator makes the full Stan-style
 warmup cheap — the mass matrix is a one-step cross-chain variance — and
 split R-hat / ESS read convergence straight off the `(chains, steps)`
 sample array.

@@ -8,7 +8,7 @@ When to reach for each:
   step accepted; only needs the prior mean.
 - **SVGD** (`svgd.svgd`): you want a deterministic particle
   approximation with gradient information but no chains — e.g. a quick,
-  parallel posterior sketch whose particle interaction rides the MXU.
+  parallel posterior sketch whose particle interaction is matrix products.
 - **SMC²** (`smc2.SMC2`): state-space model with unknown parameters,
   processed ONLINE — parameter particles carry their own particle
   filters and rejuvenate via PMMH when they degenerate.

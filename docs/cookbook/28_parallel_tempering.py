@@ -7,7 +7,7 @@ bridges `p(z) * p(y | z)^beta` — hot replicas (small beta) see a nearly
 flat likelihood and roam freely; exchanges let cold chains inherit their
 mode discoveries.
 
-The TPU-shaped design decisions (inference/parallel_tempering.py):
+The accelerator-shaped design decisions (inference/parallel_tempering.py):
 
 - all T replicas advance as ONE vmapped sweep (shared-args layout);
 - exchanges swap scalar TEMPERATURE ASSIGNMENTS, never replica states —

@@ -1,11 +1,11 @@
-"""genjax_tpu: a TPU-native probabilistic programming framework.
+"""genjax_tpu: an accelerator-native probabilistic programming framework.
 
 A from-scratch implementation of the Gen generative function interface
-(GFI) on JAX/XLA/Pallas, designed for TPU hardware: dense pytree traces,
+(GFI) on JAX/XLA, designed for accelerator hardware: dense pytree traces,
 handler-based `@gen` tracing (no jaxpr interpretation on GFI paths), a
-native distribution library, vectorized + mesh-sharded inference
-(SIR/SMC with distributed resampling, MCMC, VI/ADEV), and Pallas kernels
-for inference hot loops.
+native distribution library, and vectorized + mesh-sharded inference
+(SIR/SMC with distributed resampling, MCMC, VI/ADEV) that XLA compiles
+for the device.
 
 Capability reference: genjax-community/genjax (see SURVEY.md).
 

@@ -4,9 +4,9 @@ Capability parity with reference
 `_src/generative_functions/combinators/mask.py:48-322`, including the
 four-case (pre-check x post-check) transition weight lattice in `edit`.
 
-TPU note: masking gates the score through `FlagOp.where` (a `select`) and
+Accelerator note: masking gates the score through `FlagOp.where` (a `select`) and
 `select`s values — dense arithmetic instead of control flow, the
-canonical TPU pattern for existence uncertainty under vectorization.
+canonical accelerator pattern for existence uncertainty under vectorization.
 `select`, NOT flag-multiplication: a masked-off subtree can legitimately
 carry a `-inf` inner score (an out-of-support constraint transplanted
 into it — distributions score those `-inf` by design, see

@@ -8,7 +8,7 @@ generate/assess/project, `Update`/`Regenerate` re-scan edits,
 `IndexRequest` O(1) single-step edit with next-step revisit,
 `VectorRequest`.
 
-`lax.scan` is already the optimal TPU lowering for sequential structure
+`lax.scan` is already the optimal accelerator lowering for sequential structure
 (one compiled step body, no unrolling); the addresses traced by each step
 nest under the integer step index and store as dense per-step arrays.
 """
@@ -202,7 +202,7 @@ class Scan(Generic[Carry, Y], GenerativeFunction[tuple[Carry, Y]]):
         argdiffs: Argdiffs,
     ):
         """Re-scan the whole sequence, editing each step; the carry chain
-        propagates edited values forward (dense recompute — the TPU-friendly
+        propagates edited values forward (dense recompute — the accelerator-friendly
         realization of the reference's incremental re-scan)."""
         primals = Diff.tree_primal(argdiffs)
         carry, scanned_in = primals

@@ -4,7 +4,7 @@ functions.
 Capability parity with reference
 `_src/generative_functions/combinators/switch.py:52-354`.
 
-TPU note: `multi_switch` evaluates exactly one branch under `lax.switch`
+Accelerator note: `multi_switch` evaluates exactly one branch under `lax.switch`
 into a zero-padded superstructure; `tree_choose` then selects
 retval/score. This is the compiler-friendly realization of existence
 uncertainty — no dynamic shapes, no host control flow.

@@ -5,7 +5,7 @@ Capability parity with reference
 generate/assess/project/edit, per-index constraint lookup, `IndexRequest`
 single-slice edit).
 
-This combinator is the workhorse of particle parallelism on TPU: the
+This combinator is the workhorse of particle parallelism on an accelerator: the
 per-particle program vectorizes into dense batched XLA ops, and the batch
 axis is exactly the axis sharded over the device mesh by
 `genjax_tpu.parallel`.

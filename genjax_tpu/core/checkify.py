@@ -3,7 +3,7 @@
 `optional_check(thunk)` is a no-op unless executing inside a
 `do_checkify()` context, in which case `thunk` runs and may issue
 `jax.experimental.checkify.check` assertions. Keeping checks off the
-default path matters on TPU: checkify inserts error-state plumbing into
+default path matters on an accelerator: checkify inserts error-state plumbing into
 the compiled program.
 """
 

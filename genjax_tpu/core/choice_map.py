@@ -8,8 +8,8 @@ constructors (`choice/entry/from_mapping/d/kw/switch`), combinators
 (`filter`, `mask`, `extend`, `merge`, `|`, `&`, `+`), dynamic integer-array
 addressing, and `invalid_subset` support detection.
 
-TPU-first design notes
-----------------------
+Accelerator-first design notes
+------------------------------
 * All leaf storage is dense arrays; dynamic-address access lowers to
   gathers + `Mask` flags (never data-dependent control flow).
 * Vectorized choice maps are ordinary `Static` tries whose leaves carry

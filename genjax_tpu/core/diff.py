@@ -4,11 +4,11 @@ Capability parity with reference
 `_src/core/compiler/interpreters/incremental.py:57-310` (`ChangeTangent`,
 `NoChange`, `UnknownChange`, `Diff` and its tree helpers).
 
-TPU-first design note
----------------------
+Accelerator-first design note
+-----------------------------
 The reference propagates `Diff` values through model code with a custom
 jaxpr interpreter, so that `edit` can statically skip recomputation at
-unchanged addresses. On TPU, branch-avoidance of that kind buys little: the
+unchanged addresses. On an accelerator, branch-avoidance of that kind buys little: the
 efficient pattern is dense recomputation fused by XLA, with *static*
 (trace-time) short-circuits where a change is provably absent. Accordingly,
 `Diff` here is a trace-time annotation type used:

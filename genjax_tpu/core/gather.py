@@ -1,20 +1,18 @@
 """Fused row-gather over pytrees: the fast path for particle resampling.
 
-New TPU-native capability with no reference counterpart (the reference
-ships no resampling at all — SURVEY.md §2 C26 note; its only particle
-indexing is the per-leaf `jnp.take` idiom of `combinators/vmap.py:277-332`,
-which this module replaces on the hot path).
+New capability with no reference counterpart (the reference ships no
+resampling at all — SURVEY.md §2 C26 note; its only particle indexing is
+the per-leaf `jnp.take` idiom of `combinators/vmap.py:277-332`, which this
+module replaces on the hot path).
 
 `jnp.take` on each leaf separately lowers to one scalar-element gather
-per leaf — pathologically slow on TPU (measured 157 ms/iter for nine
-1M-element takes on a v5e). Packing the leaves into one `(N, F)` matrix
-and gathering ROWS amortizes the per-index cost across columns:
-8.5 ms/iter, an 18.6x win. Even packed, TPU gathers remain PER-INDEX
-bound (~130M indices/s; `tools/microbench_gather.py`), so the
-systematic-resampling hot paths go further and avoid the gather
-entirely via the streaming expansion in `ops/expand.py`; `take_rows`
-remains the general path (arbitrary/permuted indices, multinomial
-resampling, row lookups).
+per leaf. Packing the leaves into one `(N, F)` matrix per dtype and
+gathering ROWS shares one index stream across all columns. Whether the
+packing copies pay for themselves on the GPU is an open measurement
+(ROADMAP D3). The systematic-resampling hot paths use the streaming
+expansion in `ops/expand.py` instead; `take_rows` is the general path
+(arbitrary/permuted indices, multinomial resampling, row lookups) and
+the plain reference `expand_rows` must equal.
 """
 
 import jax.numpy as jnp

@@ -10,7 +10,7 @@ Representation: a pytree `value` paired with a Boolean `flag` whose shape is
 either scalar or a *leading-axes prefix* of every value leaf. This dense
 layout is what vectorization produces naturally — `vmap`/`scan` prepend batch
 dimensions to both halves — and it keeps all mask algebra as elementwise
-selects on contiguous arrays, which XLA fuses for free on TPU. Combination
+selects on contiguous arrays, which XLA fuses for free on an accelerator. Combination
 (`|`, `^`) is implemented as a single broadcast-select over the pair of
 values (no branch dispatch, no gather): the left value wins wherever its flag
 is set, and only the flag arithmetic differs between the two operators.

@@ -5,8 +5,8 @@ structured value in the framework derives from: traces, choice maps,
 selections, masks, generative functions, edit requests, particle
 collections.
 
-TPU-first design notes
-----------------------
+Accelerator-first design notes
+------------------------------
 The reference framework (genjax `_src/core/pytree.py:40-376`) builds on
 penzai's ``pz.Struct``.  Here we register dataclasses directly with JAX's
 pytree machinery via ``jax.tree_util.register_pytree_with_keys``, which:

@@ -3,12 +3,12 @@ selects, zero-FLOP shape evaluation.
 
 Capability parity with reference `_src/core/compiler/staging.py:55-347`
 (`FlagOp`, `tree_choose`, `multi_switch`, `to_shape_fn`, `empty_trace`),
-re-implemented for the TPU build:
+re-implemented for this build:
 
 * `FlagOp.cond` / `FlagOp.where` statically prune branches when the flag is
   a concrete Python bool — this keeps XLA programs small and avoids
-  `lax.cond` on TPU (where both branches are usually computed anyway; a
-  `select` on results is the efficient TPU pattern).
+  `lax.cond` on an accelerator (where both branches are usually computed anyway; a
+  `select` on results is the efficient accelerator pattern).
 * `multi_switch` lets `lax.switch` run branches with different output
   shapes/dtypes by zero-padding each branch's result into a shared
   superstructure.
@@ -103,7 +103,7 @@ def tree_choose(idx: ArrayLike, pytrees: Sequence[R]) -> R:
 
     Acts like `pytrees[idx]` when `idx` is a concrete int (zero FLOPs);
     otherwise lowers to a leaf-wise `jnp.choose(mode="wrap")`, the standard
-    TPU-friendly way to combine pre-computed branch outputs.
+    accelerator-friendly way to combine pre-computed branch outputs.
 
     >>> import jax.numpy as jnp
     >>> from genjax_tpu.core.staging import tree_choose

@@ -1,7 +1,7 @@
 """Type aliases and static checks (reference `_src/core/typing.py:37-135`).
 
 We deliberately keep this light: shape/dtype checking frameworks (jaxtyping,
-beartype) add Python-side overhead on every call; on the TPU path we instead
+beartype) add Python-side overhead on every call; on the accelerator path we instead
 rely on JAX's own shape checking at trace time.
 """
 

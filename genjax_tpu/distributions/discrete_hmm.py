@@ -9,7 +9,7 @@ Capability parity with reference
 `estimate_logpdf` / data marginal). The reference leans on
 `tfd.HiddenMarkovModel` for marginals; this build computes them directly
 with a `lax.scan` forward algorithm (logsumexp recursions are dense
-matrix-ish ops, ideal for the TPU VPU/MXU).
+matrix-ish ops, ideal for the accelerator's vector and matrix units).
 """
 
 from typing import Any

@@ -150,7 +150,7 @@ class Distribution(Generic[R], GenerativeFunction[R]):
         # constraint inside `Vmap`/`Scan`). Dense formulation: run BOTH the
         # fresh draw and the density evaluation, then select — this is what
         # a `cond` lowers to under vmap anyway, and it keeps the whole
-        # branch as fused elementwise work on TPU.
+        # branch as fused elementwise work on an accelerator.
         flag = held.primal_flag()
         k_sim, k_score = jax.random.split(key)
         fresh_score, fresh_v = self.random_weighted(k_sim, *args)
@@ -193,7 +193,7 @@ class Distribution(Generic[R], GenerativeFunction[R]):
             # Runtime-gated constraint: select the winner densely, then do
             # ONE density evaluation (both arms of the reference's cond
             # compute the same density at different points — selecting the
-            # point first halves the work and stays fused on TPU).
+            # point first halves the work and stays fused on an accelerator).
             gate = proposed.primal_flag()
             winner = proposed.unmask(default=old_value)
             discard = old_choices.mask(gate)
@@ -278,7 +278,7 @@ class Distribution(Generic[R], GenerativeFunction[R]):
 
         # Runtime-valued selection (e.g. a per-index selection sliced
         # inside `lax.scan`/`vmap`): compute both outcomes and select
-        # densely — the TPU-friendly realization (no host control flow;
+        # densely — the accelerator-friendly realization (no host control flow;
         # XLA fuses the select into the density pass).
         def when_selected(k):
             s, v = self.random_weighted(k, *new_args)

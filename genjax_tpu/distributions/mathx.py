@@ -3,7 +3,7 @@
 The reference delegates densities to TensorFlow Probability; this build
 implements them directly on `jax.scipy.special` plus the helpers here,
 keeping the whole density path inside XLA-fusable elementwise ops (ideal
-for the TPU VPU, and trivially vmappable over particles).
+for the accelerator's vector units, and trivially vmappable over particles).
 """
 
 import jax

@@ -1,10 +1,5 @@
 """Experimental namespace (reference `genjax.experimental`): staging
-ground for APIs whose shape may still change."""
+ground for APIs whose shape may still change. Empty, as in the
+reference."""
 
-from genjax_tpu.ops import (
-    fused_logsumexp,
-    maybe_fused_logsumexp,
-    use_fused_logsumexp,
-)
-
-__all__ = ["fused_logsumexp", "maybe_fused_logsumexp", "use_fused_logsumexp"]
+__all__: list[str] = []

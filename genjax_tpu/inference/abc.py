@@ -11,7 +11,7 @@ the prior — so ABC here works for any generative function, with the
 observation sites simply left unconstrained.
 
 `ABCSMC` is the adaptive SMC sampler of Del Moral et al. (2012) in its
-dense, fixed-shape form (the TPU-correct variant): each generation
+dense, fixed-shape form (the vectorized variant): each generation
 tightens the tolerance to a quantile of the current population's
 distances, resamples the survivors, and applies MCMC moves whose
 "likelihood" is the tolerance indicator — no rejection loops, no

@@ -4,7 +4,7 @@ mass matrices.
 Beyond the reference (genjax-community/genjax ships raw `HMC`/`SafeHMC`
 with user-supplied `eps` only — `_src/inference/requests/hmc.py:112-225`);
 step-size/mass adaptation is table stakes for HMC users, so this module
-packages the standard warmup recipe in the form the TPU makes natural:
+packages the standard warmup recipe in the form a many-chain accelerator layout makes natural:
 
 - **Step size** by Nesterov dual averaging on the acceptance statistic
   (Hoffman & Gelman 2014, §3.2) — a scalar recursion carried through the

@@ -18,7 +18,7 @@ auxiliary densities come straight from the GFI (`Update` edits and
 `assess`), and the Jacobian is one `jax.jacfwd` over the raveled
 (x, u) vector with `slogdet` — exact, no hand-derived determinants.
 
-TPU notes: the involution is ordinary traced JAX code, so the whole
+Accelerator notes: the involution is ordinary traced JAX code, so the whole
 kernel jits and vmaps across chains; the Jacobian cost is
 O((dim x + dim u)^2), which is the right trade for the low-dimensional
 structured moves involutions are used for (use HMC/MALA for bulk

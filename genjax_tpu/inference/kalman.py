@@ -30,11 +30,10 @@ def _predict_update_full(A, Q, H, R, mu, P, y, predict=True):
     """Predict+update returning the predicted moments too (the smoother
     needs them); the single source of the Kalman algebra.
 
-    Runs at full f32 matmul precision: TPU's default bf16 passes let
-    the covariance recursion drift enough to visibly corrupt smoothed
-    states in near-singular models (STS seasonal corr 0.9999 -> ~0.3
-    with default precision). These are tiny matrices; precision here is
-    free."""
+    Runs at full f32 matmul precision: the GPU's default TF32 matmuls
+    (10 mantissa bits) can let the covariance recursion drift enough to
+    corrupt smoothed states in near-singular models (singular-Q STS
+    seasonal blocks). These are tiny matrices; precision here is free."""
     with jax.default_matmul_precision("float32"):
         return _predict_update_full_impl(A, Q, H, R, mu, P, y, predict)
 
@@ -177,7 +176,7 @@ class LinearGaussianSSM(Pytree):
         # C = P_f[t] A^T P_pred[t+1]^+  — pseudo-inverse, NOT solve:
         # models with deterministic state directions (singular Q, e.g.
         # STS seasonal blocks) make P_pred near-singular, and the LU
-        # solve turns into garbage gains on TPU f32 (smoothed seasonal
+        # solve turns into garbage gains in f32 (smoothed seasonal
         # correlation fell from 0.9999 to -0.11 before this). The PSD
         # eigh pseudo-inverse is the correct limit: null directions of
         # P_pred are also null in P_f A^T, so they get zero gain.

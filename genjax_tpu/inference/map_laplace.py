@@ -8,7 +8,7 @@ including the Laplace evidence estimate
 
     log p(y) ~ log p(map, y) + d/2 log 2pi - 1/2 log det(-H).
 
-TPU shape: optimization is an optax loop inside one `lax.scan` whose
+Accelerator shape: optimization is an optax loop inside one `lax.scan` whose
 body is the same fused value+gradient density pass HMC uses
 (`make_selection_grad_fn`); the Hessian is one `jax.hessian` of the
 flattened selected vector (dense d x d — this is a tool for modest-

@@ -50,7 +50,7 @@ def mh(
     with the exact MH ratio (see `_log_accept_ratio`).
 
     Returns `(new_trace, accepted)`; realized with dense `where` selects
-    (both branches present, no control flow) — the TPU-native MH step.
+    (both branches present, no control flow) — the accelerator-native MH step.
 
     Block moves through `Switch`: regenerating an address that feeds a
     switch index (e.g. a mixture's `"mixture_component"`) re-simulates
@@ -179,7 +179,7 @@ def enumerative_gibbs(
     ch. 8 / tests/inference/test_mixture_mh.py).
 
     All candidates are scored with one `vmap` of the edit — a dense
-    (n_values,)-batched density evaluation, the TPU-native shape for
+    (n_values,)-batched density evaluation, the accelerator-native shape for
     enumeration.
 
     >>> import jax, jax.numpy as jnp

@@ -19,7 +19,7 @@ the prior term), and the constrained-prior random walk is an `Update`
 edit accepted with the PRIOR ratio (`project` delta) under the hard
 likelihood constraint — no model-specific density code anywhere.
 
-TPU notes: the outer loop is inherently sequential (one retirement per
+Accelerator notes: the outer loop is inherently sequential (one retirement per
 iteration) but each iteration is one `lax.scan` body of dense work:
 an argmin over the live set, `n_mcmc` Update-edit density evaluations,
 and a masked scatter back into the live batch. All shapes static.

@@ -11,7 +11,7 @@ the ratio targeting the bridge at inverse temperature `beta` is
 `alpha_1 - (1 - beta) * delta_loglik`, with `loglik` read off the GFI
 as `trace.project(observed addresses)`.
 
-TPU design notes:
+Accelerator design notes:
 
 - All T replicas advance as ONE vmapped tempered-MH sweep in the
   shared-args layout (per-leaf axes trees, one copy of the model data).

@@ -5,7 +5,7 @@ driver, SURVEY.md §2 C26): a `lax.scan`-over-time particle filter whose
 per-step transition/observation model is any generative function of
 signature `(z_prev, t) -> step trace` with an observation address.
 
-TPU design: particles are a dense `(K, ...)` state pytree; each step is
+Accelerator design: particles are a dense `(K, ...)` state pytree; each step is
 `vmap(step_model.importance)` (one fused density evaluation per particle)
 followed by search-free systematic resampling (cumsum + scatter +
 `lax.cummax`, see `inference/smc.py`).
@@ -62,9 +62,7 @@ class BootstrapFilter(Pytree):
 
         Resampling is ADAPTIVE (fires when ESS < ess_threshold * K) and
         realized with `lax.cond`, so steps that keep their weights skip
-        the resampling pass entirely at runtime — the scatter + gather
-        pair costs ~20 ms/step at K=1M, ~2.5x the rest of the step, so
-        skipping it is the dominant large-K win (set
+        the resampling pass entirely at runtime (set
         `ess_threshold >= 1.0` to resample every step). Weights carry
         across non-resampled steps; the LML telescopes exactly:
         `lml += logsumexp(lw) - log K` is banked at each resample and the

@@ -19,7 +19,7 @@ particle-MCMC family of Andrieu, Doucet & Holenstein (2010) next to
   retained path (a `lax.scan` of `assess`) — a partially-collapsed Gibbs
   sampler on p(theta, z_{1:T} | y_{1:T}).
 
-TPU shape: the sweep is a `lax.scan` over time around K-wide `vmap`s
+Accelerator shape: the sweep is a `lax.scan` over time around K-wide `vmap`s
 (one fused density pass per particle per step); per-step states and
 ancestor indices are scan outputs, and the path is reconstructed by a
 reverse scan over the stored lineage — all dense, no Python loops.

@@ -10,7 +10,7 @@ estimate — the pseudo-marginal construction keeps the chain's stationary
 distribution exactly the true parameter posterior, for any particle
 count.
 
-TPU shape: each MH step re-runs `BootstrapFilter.run` at the proposed
+Accelerator shape: each MH step re-runs `BootstrapFilter.run` at the proposed
 parameters — a `lax.scan` over time around a K-wide `vmap` — so the
 whole chain is a scan-of-scans, one compiled program. Multiple PMMH
 chains vectorize with one more `vmap` (parameters and LML carries are

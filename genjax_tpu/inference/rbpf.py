@@ -15,8 +15,8 @@ likelihood — sampling only the z-dimension (Doucet, de Freitas, Murphy
 variance relative to a particle filter on the joint `(z, x)` state
 (tested head-to-head in tests/inference/test_rbpf.py).
 
-TPU shape: the per-particle Kalman step is `kalman_predict_update`
-vmapped over the batch — dense (K, d, d) batched matmuls on the MXU —
+Accelerator shape: the per-particle Kalman step is `kalman_predict_update`
+vmapped over the batch — dense (K, d, d) batched matmuls on the matrix units —
 and resampling reuses the framework's adaptive systematic machinery on
 the packed `(z, mu, P)` rows.
 """

@@ -11,7 +11,7 @@ so this request composes directly with `inference.mcmc.mh`,
 `TemperedSMC` rejuvenation, and `ParallelTempering` within-temperature
 sweeps.
 
-TPU notes: the proposal is one fused elementwise pass per leaf (no
+Accelerator notes: the proposal is one fused elementwise pass per leaf (no
 gather, no control flow), and the whole move vmaps over particle/chain
 batches like every other request.
 """

@@ -9,8 +9,8 @@ accepted, there is no step size, and the only model access it needs is
 already in the GFI: `Regenerate` supplies the auxiliary prior draw and
 `Update` + `Trace.project` supply the likelihood evaluations.
 
-TPU notes
----------
+Accelerator notes
+-----------------
 The bracket-shrinking loop is a `lax.while_loop` whose body is one dense
 density evaluation (an `Update` edit) — no dynamic shapes, so the move
 `jax.vmap`s across chains (JAX lifts the loop to run until every lane

@@ -11,8 +11,8 @@ subtree across doublings). The move leaves the target invariant; like
 `EllipticalSlice`, the returned weight is 0.0 so it composes with
 `mh`/`mh_chain`/`run_chains` and the sharded chain drivers unchanged.
 
-TPU-shaped formulation
-----------------------
+Accelerator-shaped formulation
+------------------------------
 Recursive NUTS is unbatchable (per-chain tree recursion). This
 implementation is ITERATIVE with a fully static schedule: doubling
 level `d` runs a `lax.scan` of exactly `2**d` leapfrog steps, so one

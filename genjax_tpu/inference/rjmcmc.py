@@ -18,7 +18,7 @@ with the Jacobian taken over the raveled (params, u) -> (params', u')
 map — square by the RJ dimension-matching condition, which is asserted
 at trace time.
 
-TPU notes: instead of branching on the jump direction (whose two sides
+Accelerator notes: instead of branching on the jump direction (whose two sides
 have different pytree structures — anathema to `lax.cond`), BOTH
 directions are evaluated densely and the live one is selected with
 `where_tree` — two density evaluations per step, the standard dense

@@ -9,14 +9,15 @@ Capability parity with reference `_src/inference/smc.py:77-465`
 resampling or SMC loop driver (SURVEY.md §2 C26) — tests do manual MH
 loops — so `resample`, `ess`, and `SMCDriver` here are new capability.
 
-TPU notes
----------
+Accelerator notes
+-----------------
 * A `ParticleCollection` is a dense pytree with a leading particle axis:
   exactly the layout that `vmap` produces and that `shard_map` shards
-  over ICI (see `genjax_tpu.parallel` for the sharded version).
-* Systematic resampling lowers to a cumulative sum + `searchsorted`
-  (one pass, vectorized); the Pallas fused kernel lives in
-  `genjax_tpu.ops.resampling`.
+  over the device mesh (see `genjax_tpu.parallel` for the sharded
+  version).
+* Resampling is search-free: systematic ancestors come from a cumulative
+  sum, a scatter and `lax.cummax`; the sorted-query resamplers merge
+  against the CDF with one sort (see each resampler's docstring).
 """
 
 from typing import Callable, Generic, TypeVar
@@ -96,7 +97,7 @@ def _blocks_to_ancestors(block_ends: IntArray, n: int) -> IntArray:
     The fill-forward is `lax.cummax` (one fused XLA scan op), NOT
     `lax.associative_scan` — the latter unrolls into ~log2(n) slice/concat
     kernel levels, which dominates the per-step cost of small-K particle
-    filters (measured 1.9x end-to-end PF slowdown at K=10k)."""
+    filters."""
     k = block_ends.shape[0]
     starts = jnp.concatenate([jnp.zeros((1,), jnp.int32), block_ends[:-1]])
     occupied = block_ends > starts
@@ -111,8 +112,8 @@ def _blocks_to_ancestors(block_ends: IntArray, n: int) -> IntArray:
 
 def _sorted_queries_ancestors(cdf: FloatArray, us: FloatArray) -> IntArray:
     """`searchsorted(cdf, us, side='right')` for SORTED queries via one
-    merge sort instead of per-query binary-search gathers (which are
-    pathologically slow on TPU). The j-th query's merged position p
+    merge sort instead of per-query binary-search gathers. The j-th
+    query's merged position p
     satisfies p = #(cdf <= u_j) + j."""
     k = cdf.shape[0]
     n = us.shape[0]
@@ -133,12 +134,20 @@ def systematic_cum_counts(
     """The cumulative block counts `N_i` of systematic resampling (output
     slots [N_{i-1}, N_i) copy particle i), WITHOUT materializing the
     ancestor vector. Feeds `ops.expand.expand_rows`, which realizes the
-    row copy as streaming passes — the ancestor materialization itself
-    costs a ~7 ms scalar scatter at 1M that this path never pays."""
+    row copy as streaming passes and never pays the ancestor scatter.
+
+    The counts are non-decreasing and end at `n`, so every output slot is
+    filled. A float32 prefix sum does not guarantee either: XLA computes
+    it blockwise, so `cdf` can dip by an ulp where a weight is tiny, and
+    at large n its total can fall short of 1 by enough to drop the last
+    slot. Without the `cummax` and the pinned last count, `expand_rows`
+    and the ancestor gather would resample such weights differently (and
+    the expansion would leave slots holding dead rows)."""
     w = jax.nn.softmax(log_weights)
     cdf = jnp.cumsum(w)
     u0 = jax.random.uniform(key, (), dtype=w.dtype)
-    return jnp.clip(jnp.floor(n * cdf - u0).astype(jnp.int32) + 1, 0, n)
+    cum = jnp.clip(jnp.floor(n * cdf - u0).astype(jnp.int32) + 1, 0, n)
+    return jax.lax.cummax(cum).at[-1].set(n)
 
 
 def systematic_resample(key: PRNGKey, log_weights: FloatArray, n: int) -> IntArray:
@@ -151,9 +160,9 @@ def systematic_resample(key: PRNGKey, log_weights: FloatArray, n: int) -> IntArr
     start and filling forward with a cumulative max — three dense O(K)
     passes (cumsum, scatter, associative scan), no binary search.
 
-    (XLA's `searchsorted` at K=1M costs ~150 ms on a v5e — its per-probe
-    random gathers defeat the memory system; this formulation runs in a
-    few ms and is exact up to the same f32 boundary rounding.)
+    (It replaces `searchsorted`, whose per-probe random gathers defeat
+    the memory system at large K; it is exact up to the same f32
+    boundary rounding.)
     """
     # N_i = #output slots with u_s <= cdf_i  (side='right' semantics)
     return _blocks_to_ancestors(systematic_cum_counts(key, log_weights, n), n)
@@ -296,11 +305,7 @@ class ParticleCollection(Generic[R], Pytree):
         return self.log_weights
 
     def get_log_marginal_likelihood_estimate(self) -> FloatArray:
-        from genjax_tpu.ops import maybe_fused_logsumexp
-
-        return maybe_fused_logsumexp(self.log_weights) - jnp.log(
-            self.log_weights.shape[0]
-        )
+        return logsumexp(self.log_weights) - jnp.log(self.log_weights.shape[0])
 
     def get_ess(self) -> FloatArray:
         return ess(self.log_weights)
@@ -323,8 +328,7 @@ class ParticleCollection(Generic[R], Pytree):
         n = self.log_weights.shape[0]
         if method == "systematic":
             # Streaming expansion (ops/expand.py): no ancestor scatter, no
-            # per-index row gather — both are per-index bound on TPU
-            # (~13 ms combined at 1M vs ~4.5 ms streaming).
+            # per-index row gather.
             from genjax_tpu.ops.expand import expand_rows
 
             cum = systematic_cum_counts(key, self.log_weights, n)
@@ -334,7 +338,7 @@ class ParticleCollection(Generic[R], Pytree):
 
             anc = RESAMPLERS[method](key, self.log_weights, n)
             # One packed row-gather instead of a per-leaf scalar gather
-            # (18.6x at 1M particles; see core/gather.py).
+            # (see core/gather.py).
             new_particles = take_rows(self.particles, anc, n_rows=n)
         # After resampling, each particle carries the average weight.
         avg_lw = logsumexp(self.log_weights) - jnp.log(n)

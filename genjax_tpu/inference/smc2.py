@@ -12,8 +12,8 @@ masked filter over the observations seen so far). The result is an
 model-evidence estimate — the sequential counterpart of
 `inference.pmmh.PMMH`.
 
-TPU shape
----------
+Accelerator shape
+-----------------
 Three nested structures, all dense: `vmap` over parameter particles,
 `vmap` over state particles inside each, `lax.scan` over time. The
 rejuvenation (the only O(t) work) sits behind a SCALAR `lax.cond` —
@@ -121,7 +121,7 @@ class SMC2(Pytree):
         The evidence increment telescopes over carried weights:
         log p_hat(y_t | y_1:t-1, theta) = lse(lw + w) - lse(lw). Inner
         resampling is adaptive; under the theta-vmap the `where` select
-        evaluates both branches, which is the dense TPU-correct shape
+        evaluates both branches, which is the dense vectorized shape
         (the gather is the same cost whether or not it is kept).
         """
         k_prop, k_res = jrand.split(key)

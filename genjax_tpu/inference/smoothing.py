@@ -11,7 +11,7 @@ already-chosen next state (Godsill, Doucet & West 2004):
 
     P(pick particle i at t) ~ w_t^i * f(z_{t+1}^chosen | z_t^i).
 
-TPU shape: run the filter once storing clouds+weights via the `collect`
+Accelerator shape: run the filter once storing clouds+weights via the `collect`
 hook; the backward pass is a `lax.scan` over time whose body scores one
 vmapped `assess` of the step model against the whole cloud per drawn
 trajectory (M trajectories vectorize with an inner vmap), then draws one

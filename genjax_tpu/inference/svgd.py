@@ -7,13 +7,13 @@ Stein discrepancy's steepest-descent direction, giving a deterministic,
 gradient-based posterior approximation that needs no accept/reject and
 no step-size/trajectory tuning beyond a learning rate.
 
-TPU notes
----------
+Accelerator notes
+-----------------
 SVGD is unusually accelerator-friendly: one iteration is a vmapped
 fused density+gradient pass (the same `value_and_grad`-of-`assess`
 closure HMC uses) followed by an N x N RBF kernel built from one
 `x @ x.T` matmul and applied with two more matmuls — the entire
-interaction term rides the MXU. State is a dense (n_particles, dim)
+interaction term runs as matrix products. State is a dense (n_particles, dim)
 matrix; the loop is one `lax.scan`. Model arguments are stored once and
 broadcast (the shared-args layout, ARCHITECTURE.md 4b), not copied per
 particle.
@@ -35,13 +35,10 @@ from genjax_tpu.inference.requests.hmc import grad_tree_unzip, grad_tree_zip
 
 
 # Particle-count cap for the median-heuristic estimate: a full-matrix
-# median is a sort of n^2 elements EVERY step (43 ms/step at n=4096 on
-# v5e — 1000x the cost of the kernel matmuls it feeds), and even a
-# 512x512 block costs 0.31 ms/step on the v5e — 6x the ENTIRE fused
-# Stein update (0.05 ms: XLA keeps the kernel matrix in VMEM through
-# the dot -> exp -> dot chain). A 128x128 block is 16k exchangeable
-# d^2 samples — the median's sampling error is far inside the
-# heuristic's own slack — and its sort is ~0.02 ms.
+# median is a sort of n^2 elements EVERY step, far more work than the
+# kernel matmuls it feeds (16M elements at n=4096). A 128x128 block is
+# 16k exchangeable d^2 samples — the median's sampling error is far
+# inside the heuristic's own slack — and its sort is small.
 _MEDIAN_SAMPLE = 128
 
 
@@ -84,16 +81,16 @@ def stein_phi_block(
     """Rows of the Stein direction for the particles `x_rows` against the
     full set `(x_all, g_all)`, sharing one kernel block `K[rows, all]`.
 
-    HBM-traffic shape (the TPU design constraint): the naive form makes
+    Memory-traffic shape (the design constraint): the naive form makes
     FOUR passes over the n x n kernel matrix per step (write K, then
     `K @ grads`, `K @ x`, `sum(K)`), and at small particle dimension D
     the whole update is bandwidth-bound on exactly that traffic. Here
     the three contractions share ONE matmul against the augmented matrix
-    `[grads | x | 1]` (contraction over the particle axis, so the MXU
-    sees a deep K-dim regardless of D), and `kernel_dtype=bfloat16`
+    `[grads | x | 1]` (contraction over the particle axis, so the
+    matmul sees a deep K-dim regardless of D), and `kernel_dtype=bfloat16`
     halves the remaining K bytes with f32 accumulation
-    (`preferred_element_type`). Measured on the v5e at n=4096, D=16:
-    0.371 -> 0.156 ms/step (see PERFORMANCE.md roofline section).
+    (`preferred_element_type`); its effect on the H100 is in PERF.md
+    (`chip_smoke.py` phase `svgd_d16`).
 
     Used by both the dense driver and `parallel.sharded_svgd` (rows =
     the local shard), so dense and sharded transports stay bit-exact
@@ -323,17 +320,17 @@ def packed_svgd(
     kernel_dtype=None,
 ) -> tuple[list, Any]:
     """Transport C independent small-D inference problems in ONE joint
-    SVGD — the lane-packing variant for TPU.
+    SVGD — the feature-packing variant.
 
-    Why: at small particle dimension D (e.g. 16) the MXU pads both Stein
-    matmuls to its 128-lane granularity — the distance contraction's
-    D-deep reduction 8x and the fused `[grads | x | 1]` output columns
-    ~4x — so single-problem SVGD is structurally capped near 1/6 of the
-    matmul roof no matter how fast the kernel is (PERFORMANCE.md, SVGD
-    section). Packing C problems feature-wise (`x_joint` is
-    `(n, sum_c D_c)`) fills those lanes with OTHER PROBLEMS' useful work:
-    at C*D = 128 both contractions run unpadded, and C posteriors come
-    out for roughly the padded price of one.
+    Why: at small particle dimension D (e.g. 16) both Stein matmuls are
+    too narrow to fill a matrix unit — the distance contraction is only
+    D deep and the fused `[grads | x | 1]` output only 2D+1 wide — so
+    single-problem SVGD uses a small share of the matmul rate no matter
+    how fast the kernel is. Packing C problems feature-wise (`x_joint`
+    is `(n, sum_c D_c)`) fills that width with OTHER PROBLEMS' useful
+    work: at C*D = 128 both contractions are 128 wide, and C posteriors
+    come out for roughly the price of one. Whether this pays on the H100
+    is an open measurement (ROADMAP S6, D6).
 
     What it computes: SVGD targeting the PRODUCT density
     `prod_c p_c(x_c | obs_c)` with a joint RBF kernel on the packed

@@ -10,7 +10,7 @@ the incremental weight at a temperature step is `(beta' - beta) ·
 loglik`, and the rejuvenation kernel is any edit request whose accept
 ratio is re-tempered from full-joint to bridge-density form.
 
-TPU notes: the whole ladder is one `lax.scan` over temperatures; each
+Accelerator notes: the whole ladder is one `lax.scan` over temperatures; each
 step is dense over the particle axis (one weight update, an ESS-gated
 resample via the search-free systematic form, and a vectorized
 tempered-MH sweep), so the driver jits into a single XLA program and

@@ -22,7 +22,7 @@ procedures do exactly that, and both are pure GFI compositions:
   addresses). Both processes have the same stationary joint iff the
   kernel is correct; moment z-scores localize the failure.
 
-TPU shape: replicates/chains are one vmapped batch in the shared-args
+Accelerator shape: replicates/chains are one vmapped batch in the shared-args
 layout (`mcmc.share_chain_args`), the draw loop is a single `lax.scan`,
 ranks accumulate incrementally (no draws materialized), and ties are
 broken by iid-uniform lexicographic comparison so discrete summaries

@@ -4,7 +4,7 @@ The reference propagates `NoChange`/`UnknownChange` tangents through model
 code with an incremental jaxpr interpreter (reference
 `_src/core/compiler/interpreters/incremental.py`), so edits skip density
 recomputation at unaffected addresses. This module restores that
-capability with a TPU-friendlier mechanism:
+capability with an accelerator-friendlier mechanism:
 
 1. Stage the model source once per (source, argument avals) with each
    `trace` site bound as an opaque `site_p` equation (zero-FLOP abstract

@@ -1,6 +1,6 @@
 """The addressing intrinsic (`dist(args) @ "addr"`) and its handler stack.
 
-TPU-first design (replaces reference `_src/generative_functions/static.py`'s
+Accelerator-first design (replaces reference `_src/generative_functions/static.py`'s
 `trace_p` initial-style primitive + jaxpr interpreters,
 `static.py:156-258`):
 

@@ -6,8 +6,8 @@ Capability parity with reference `_src/generative_functions/static.py`
 `simulate/assess/generate/project/edit` with `Update`, `Regenerate`, and
 per-address `StaticRequest` edit requests.
 
-TPU-first architecture
-----------------------
+Accelerator-first architecture
+------------------------------
 Every GFI method runs the model source *directly* under JAX tracing with a
 method-specific handler installed (see `lang/interop.py`) — there is no
 jaxpr staging or interpretation on these paths. The resulting XLA program

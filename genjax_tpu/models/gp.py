@@ -9,8 +9,8 @@ a CORRELATED Gaussian prior (one `mv_normal` site), and conjugate
 GP regression gives closed-form posterior mean/covariance/LML oracles
 for exactness tests.
 
-TPU notes: kernel matrices are dense (n, n) Gram matrices built from
-one `x @ x.T`-style broadcast — MXU work — and the Cholesky in
+Accelerator notes: kernel matrices are dense (n, n) Gram matrices built from
+one `x @ x.T`-style broadcast — matrix-unit work — and the Cholesky in
 `mv_normal` keeps the prior draw dense. Latent-GP inference (non-
 Gaussian likelihoods) composes the `gp_latent` site with any likelihood
 and runs tuning-free under ESS.
@@ -39,7 +39,7 @@ def _sqdist(xs: FloatArray, zs: FloatArray) -> FloatArray:
     """Pairwise squared distances; inputs (n,) or (n, d).
 
     Direct broadcast differences, NOT the x2 + z2 - 2 x.z matmul trick:
-    on TPU the matmul runs at reduced precision and the cancellation
+    at the GPU's default TF32 matmul precision the cancellation
     makes near-zero distances slightly negative, which destroys the
     Gram matrix's positive-definiteness (Cholesky NaNs downstream).
     Model input sets are small, so the O(n^2 d) broadcast is free.

@@ -14,7 +14,7 @@ model family); this module follows the same gallery conventions as
 - **Non-centered parameterization** (`eight_schools`): latents are
   ``(mu, log_tau, z)`` with ``theta = mu + tau * z`` — the geometry
   HMC-family samplers need in the small-``tau`` funnel neck, and the
-  TPU-friendly layout (one vectorized ``z`` site, no per-group
+  accelerator-friendly layout (one vectorized ``z`` site, no per-group
   addresses).
 - **Centered parameterization** (`eight_schools_centered`): latents
   ``(mu, log_tau, theta)`` — kept as the funnel-pathology demonstrator.

@@ -2,8 +2,8 @@
 thousands of vectorized parallel chains.
 
 The per-chain density is dominated by the `X @ w` matvec; vmapped over
-chains it becomes a `(chains, D) @ (D, N)` matmul — MXU work, exactly
-where TPU FLOPs should go.
+chains it becomes a `(chains, D) @ (D, N)` matmul — matrix-unit work, exactly
+where accelerator FLOPs should go.
 """
 
 import jax

@@ -11,7 +11,7 @@ come from the shared Kalman algebra — and because that algebra is plain
 traced JAX, `lml` is DIFFERENTIABLE: `fit` trains the component scales
 by direct gradient ascent on the exact evidence (no E-M, no sampling).
 
-TPU notes: one `lax.scan` over time with small dense matrix algebra per
+Accelerator notes: one `lax.scan` over time with small dense matrix algebra per
 step; fitting is `jax.value_and_grad` through the scan inside an optax
 loop — a single compiled program.
 """
@@ -170,8 +170,8 @@ class StructuralTimeSeries(Pytree):
         def step(carry, _):
             mu, P = carry
             # full f32 matmul precision: the covariance recursion on
-            # singular-Q blocks drifts visibly under TPU's default bf16
-            # passes (same hazard kalman._predict_update_full guards).
+            # singular-Q blocks can drift under the GPU's default TF32
+            # matmuls (same hazard kalman._predict_update_full guards).
             with jax.default_matmul_precision("float32"):
                 mu = m.A @ mu
                 P = m.A @ P @ m.A.T + m.Q

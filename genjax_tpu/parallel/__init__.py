@@ -1,7 +1,7 @@
 """Multi-chip scaling: particle/chain axes sharded over a device mesh.
 
 The reference is single-host single-device (SURVEY.md §2.2: vmap/scan/jit
-only). This package is new TPU-native capability: named meshes, sharded
+only). This package is new accelerator-native capability: named meshes, sharded
 particle collections with `psum`-based weight reductions, distributed
 systematic resampling over ICI, and sharded MCMC chain execution.
 """

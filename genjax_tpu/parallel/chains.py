@@ -3,7 +3,7 @@
 Chains are embarrassingly parallel — the only collectives are optional
 cross-chain diagnostics (`psum` means for R-hat style statistics). Inside
 each shard, chains vectorize with `vmap` (dense batched leapfrog /
-proposal arithmetic on the VPU/MXU).
+proposal arithmetic).
 """
 
 from functools import partial

@@ -7,8 +7,8 @@ ESS) are `pmax`/`psum` collectives along the particle axis ONLY; chains
 never communicate (they exist for replicated LML estimates, posterior
 variance diagnostics, and multi-temperature schemes).
 
-Promoted into the library from `__graft_entry__.dryrun_multichip`
-(VERDICT r1 item 9); tested against the dense single-device driver on
+Promoted into the library from `__graft_entry__.dryrun_multichip`;
+tested against the dense single-device driver on
 the 8-device virtual mesh (`tests/parallel/test_grid.py`).
 """
 
@@ -24,7 +24,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from genjax_tpu.core.choice_map import ChoiceMap
 from genjax_tpu.core.pytree import Pytree
 from genjax_tpu.core.typing import FloatArray, IntArray, PRNGKey
-from genjax_tpu.inference.smc import ParticleCollection
+from genjax_tpu.inference.smc import ParticleCollection, systematic_cum_counts
 from genjax_tpu.inference.sp import Target
 
 R = TypeVar("R")
@@ -206,11 +206,7 @@ class GridSMC(Generic[R], Pytree):
             lo = jax.lax.axis_index(self.particle_axis) * per_shard
 
             def one_chain(chain_key, lw_row):
-                u0 = jax.random.uniform(chain_key, (), dtype=lw_row.dtype)
-                cdf = jnp.cumsum(jax.nn.softmax(lw_row))
-                n_cum = jnp.clip(
-                    jnp.floor(n * cdf - u0).astype(jnp.int32) + 1, 0, n
-                )
+                n_cum = systematic_cum_counts(chain_key, lw_row, n)
                 starts = jnp.concatenate(
                     [jnp.zeros((1,), jnp.int32), n_cum[:-1]]
                 )

@@ -9,7 +9,7 @@ def particle_mesh(
     n_devices: int | None = None, axis_name: str = "particles"
 ) -> Mesh:
     """A 1-D mesh over the available devices, named for the particle (or
-    chain) axis. On a v5e slice this axis rides ICI."""
+    chain) axis. On one host this axis rides the cards' interconnect."""
     devices = jax.devices()
     if n_devices is not None:
         devices = devices[:n_devices]

@@ -1,8 +1,8 @@
 """Multi-host inference: DCN-aware meshes and cross-host state assembly.
 
 The reference is single-host, single-device (SURVEY.md §2.2 P6 — absent).
-This module is the TPU-native multi-host story, designed around the
-hardware's two interconnect tiers:
+This module is the multi-host story, designed around two interconnect
+tiers:
 
 * **ICI** (fast, intra-slice) carries the particle axis — weight
   collectives and resampling row exchange (`parallel/smc.py`,
@@ -43,9 +43,7 @@ def initialize_multihost(
 ) -> bool:
     """Initialize the JAX distributed runtime for a multi-process run.
 
-    Call once per host process before any backend use. On TPU pods the
-    arguments are auto-detected from the environment and may be omitted.
-    Returns True if the distributed runtime was (already) initialized,
+    Call once per host process before any backend use. Returns True if the distributed runtime was (already) initialized,
     False when running single-process (in which case this is a no-op —
     every `parallel/` API works unchanged on the local mesh).
     """
@@ -125,17 +123,13 @@ def hybrid_mesh(
                 f"{n} devices in {granules} granules (expected "
                 f"{derived_particles})."
             )
-        # Multi-slice TPU pods expose one `slice_index` per DCN granule;
-        # CPU/GPU clusters (including the 2-process CPU integration test)
-        # report none — or one shared value — so there the process IS the
-        # DCN granule.
-        slice_ids = {getattr(d, "slice_index", None) for d in jax.devices()}
-        process_is_granule = None in slice_ids or len(slice_ids) != granules
+        # On GPU (and CPU) clusters each process is one host, so the
+        # process is the slow-tier granule.
         devices = mesh_utils.create_hybrid_device_mesh(
             mesh_shape=(islands_per_granule, derived_particles),
             dcn_mesh_shape=(granules, 1),
             devices=jax.devices(),
-            process_is_granule=process_is_granule,
+            process_is_granule=True,
         )
         return Mesh(devices, (island_axis, particle_axis))
     if island_devices is None:

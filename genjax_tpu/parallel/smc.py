@@ -31,7 +31,7 @@ from jax import shard_map
 from genjax_tpu.core.choice_map import ChoiceMap
 from genjax_tpu.core.pytree import Pytree
 from genjax_tpu.core.typing import FloatArray, IntArray, PRNGKey
-from genjax_tpu.inference.smc import ParticleCollection
+from genjax_tpu.inference.smc import ParticleCollection, systematic_cum_counts
 from genjax_tpu.inference.sp import Target
 from genjax_tpu.parallel.mesh import constrain_leading_axis
 
@@ -88,18 +88,15 @@ def sharded_systematic_ancestors(
     def _anc(key, lw_local):
         lw = jax.lax.all_gather(lw_local, axis, tiled=True)
         n = lw.shape[0]
-        w = jax.nn.softmax(lw)
-        cdf = jnp.cumsum(w)
         shard = jax.lax.axis_index(axis)
         per_shard = lw_local.shape[0]
         lo = shard * per_shard
-        u0 = jax.random.uniform(key, (), dtype=w.dtype)
         # Search-free closed form (see inference.smc.systematic_resample):
         # particle i's output block is [N_{i-1}, N_i). Each shard scatters
         # block starts that land in its slot range [lo, lo+per_shard)
         # (blocks straddling `lo` collapse onto local slot 0 via max) and
         # fills forward with a cumulative max.
-        n_cum = jnp.clip(jnp.floor(n * cdf - u0).astype(jnp.int32) + 1, 0, n)
+        n_cum = systematic_cum_counts(key, lw, n)
         starts = jnp.concatenate([jnp.zeros((1,), jnp.int32), n_cum[:-1]])
         occupied = n_cum > starts
         local_starts = jnp.maximum(starts - lo, 0)
@@ -150,10 +147,7 @@ def sharded_systematic_exchange(
         lo = shard * per
 
         # Global cumulative block counts (replicated computation).
-        w = jax.nn.softmax(lw)
-        cdf = jnp.cumsum(w)
-        u0 = jax.random.uniform(key, (), dtype=w.dtype)
-        cum = jnp.clip(jnp.floor(n * cdf - u0).astype(jnp.int32) + 1, 0, n)
+        cum = systematic_cum_counts(key, lw, n)
         starts = jnp.concatenate([jnp.zeros((1,), jnp.int32), cum[:-1]])
         occupied = cum > starts
         # My output slots' global ancestors (scatter block starts landing
@@ -277,9 +271,8 @@ class ShardedSMC(Generic[R], Pytree):
     ) -> ParticleCollection[R]:
         if self.mesh.shape[self.axis] == 1:
             # Single shard on the particle axis: streaming expansion —
-            # skips the ancestor scatter AND the per-index row gather,
-            # both per-index bound on TPU (ops/expand.py).
-            from genjax_tpu.inference.smc import systematic_cum_counts
+            # skips the ancestor scatter AND the per-index row gather
+            # (ops/expand.py).
             from genjax_tpu.ops.expand import expand_rows
 
             cum = systematic_cum_counts(

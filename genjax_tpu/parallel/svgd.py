@@ -1,7 +1,7 @@
 """Sharded SVGD: Stein particle transport with the particle axis spanning
 the device mesh.
 
-New TPU-native capability (the single-device SVGD driver is
+New accelerator-native capability (the single-device SVGD driver is
 `inference/svgd.py`; the reference has neither). SVGD's interaction
 term is an N x N kernel against all particles, so sharding rows over
 the mesh gives each device an (N/d, N) block of the kernel — computed

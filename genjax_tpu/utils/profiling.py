@@ -3,7 +3,7 @@ inference entry points.
 
 The reference ships no profiling integration (SURVEY.md §5); this module
 is new capability: wrap any inference step in `annotate` to get labelled
-regions in TPU profiler traces, or capture a full trace with
+regions in profiler traces, or capture a full trace with
 `profile_trace`.
 """
 

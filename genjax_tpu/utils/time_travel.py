@@ -5,7 +5,7 @@ Capability parity with reference
 `_src/core/compiler/interpreters/time_travel.py:42-295` (`rec`, `tag`,
 `time_machine`, `TimeTravelingDebugger` with `fwd`/`bwd`/`jump`/`remix`).
 
-TPU-first design: the reference captures continuation frames with a
+Accelerator-first design: the reference captures continuation frames with a
 hybrid-CPS jaxpr interpreter. Here checkpoints are recorded by a dynamic
 handler at trace time (same mechanism as the `@gen` language) and `remix`
 re-executes the program from the start with the chosen frame's value

@@ -90,7 +90,7 @@ def accumulating_step(carry, _x):
 
 
 class TestCarryStabilityGuard:
-    """Round-3 soundness guard (VERDICT r2 item 5): a carry-unstable
+    """Round-3 soundness guard: a carry-unstable
     kernel must be caught under do_checkify instead of silently
     corrupting steps beyond idx+1."""
 

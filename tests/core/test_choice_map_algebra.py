@@ -1,5 +1,5 @@
-"""Deep ChoiceMap/Selection algebra property tests (VERDICT r1 item 2:
-grow coverage toward the reference's hypothesis suite —
+"""Deep ChoiceMap/Selection algebra property tests (grow
+coverage toward the reference's hypothesis suite —
 Switch × Indexed × filter × merge interactions on randomly generated
 nested tries and randomly generated selection expressions).
 """

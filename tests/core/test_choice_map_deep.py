@@ -1,4 +1,4 @@
-"""Choice-map deep property tests, round 3 (VERDICT r2 item 4: reference
+"""Choice-map deep property tests, round 3 (reference
 `tests/core/test_choice_maps.py:22-1202` depth — mixed static/dynamic
 address strategies, Switch x Or x Indexed nesting, vectorized-flag edge
 cases, and `invalid_subset` against vmap/scan-structured models).

@@ -195,7 +195,7 @@ class TestPreconditionedKernelsExact:
         trajectory returns to its start (high acceptance, zero movement)
         and split R-hat explodes; jitter=0.2 must restore mixing. This is
         the pathology step-size adaptation is attracted to, found by the
-        diagnostics on the first TPU run of warmup_chains."""
+        diagnostics on the first accelerator run of warmup_chains."""
         from genjax_tpu.inference.diagnostics import split_rhat
 
         trs = chain_batch(

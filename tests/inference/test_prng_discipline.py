@@ -1,6 +1,6 @@
 """PRNG hygiene: across a composed SMC + rejuvenation run, every key that
-reaches a distribution's `sample` must be distinct (VERDICT r1 item 6 —
-`ChangeTarget`/`ImportanceK`/`SMCDriver` previously reused parent keys;
+reaches a distribution's `sample` must be distinct
+(`ChangeTarget`/`ImportanceK`/`SMCDriver` previously reused parent keys;
 the streams only differed by split arity, a latent trap).
 """
 

@@ -138,7 +138,7 @@ def _ssm(a=0.8, q=0.6, r=0.5, T=6):
 
 class TestHMCStructured:
     """HMC on structured (scan / nested-scan) models with exact-oracle
-    convergence and an exact alpha identity (VERDICT r1 item 2; parity
+    convergence and an exact alpha identity (parity
     with reference tests/inference/test_requests.py:197-428)."""
 
     YS = jnp.array([0.4, 1.1, 0.3, -0.5, 0.9, 1.3])
@@ -257,7 +257,7 @@ class TestHMCStructured:
 
 
 class TestSafeHMC:
-    """Behavioral SafeHMC coverage (VERDICT r1 weak item 9)."""
+    """Behavioral SafeHMC coverage."""
 
     def test_safe_hmc_accepts_retval_independent_site(self):
         from genjax_tpu.inference.requests import SafeHMC

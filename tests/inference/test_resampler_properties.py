@@ -3,6 +3,7 @@ the canonical variance ordering systematic <= stratified <= multinomial."""
 
 import jax
 import jax.numpy as jnp
+import pytest
 
 from genjax_tpu.inference.smc import (
     multinomial_resample,
@@ -112,3 +113,25 @@ class TestStreamingExpansionEquivalence:
         x = jnp.arange(float(n))
         anc = systematic_resample(key, lw, n)
         assert jnp.array_equal(run(key, lw, x), x[anc])
+
+
+# (log-weight seed, key seed) at n = 2^16 with log-weights 3 * N(0, 1):
+# the first makes XLA's float32 prefix sum of the weights dip below an
+# integer boundary of n * cdf - u0; the second pairs a total that falls
+# short of 1 with u0 near 1, which would drop the last output slot.
+@pytest.mark.parametrize("lw_seed,key_seed", [(1, 0), (4, 3593)])
+def test_systematic_counts_fill_every_slot_in_order(lw_seed, key_seed):
+    from genjax_tpu.core.gather import take_rows
+    from genjax_tpu.inference.smc import systematic_cum_counts
+    from genjax_tpu.ops.expand import expand_rows
+
+    n = 2**16
+    lw = 3.0 * jax.random.normal(jax.random.key(lw_seed), (n,))
+    key = jax.random.key(key_seed)
+    cum = systematic_cum_counts(key, lw, n)
+    assert int(cum[-1]) == n
+    assert bool(jnp.all(jnp.diff(cum) >= 0))
+    x = jnp.arange(n, dtype=jnp.int32)
+    assert jnp.array_equal(
+        expand_rows(x, cum, n_rows=n), take_rows(x, systematic_resample(key, lw, n))
+    )

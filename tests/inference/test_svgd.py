@@ -157,8 +157,8 @@ class TestKernelPieces:
 
 
 class TestPackedSVGD:
-    """packed_svgd: the lane-packing variant — SVGD on the product
-    target with a joint kernel (see its docstring for the TPU
+    """packed_svgd: the feature-packing variant — SVGD on the product
+    target with a joint kernel (see its docstring for the
     rationale)."""
 
     def test_single_problem_is_plain_svgd_bitwise(self):

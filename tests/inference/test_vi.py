@@ -89,7 +89,7 @@ class TestIWELBO:
 
     def test_iwelbo_reparam_recovers_posterior_mean(self):
         """IWELBO (N=8) gradient descent drives the variational mean to
-        the exact posterior mean, like ELBO does (VERDICT r1 item 5)."""
+        the exact posterior mean, like ELBO does."""
 
         @g.gen
         def model(_vmu):
@@ -258,7 +258,7 @@ class TestWakeSleep:
           term is the prior N(mu; θ, 1), so θ* = E_q*[mu] = 0.8.
         * QWake fits the proposal to q*'s samples by maximum likelihood,
           so (φ_mu, φ_sd) → (0.8, 0.6).
-        (VERDICT r1 item 5: replaces finiteness-only asserts.)"""
+        (replaces finiteness-only asserts.)"""
         q_star = (0.8, 0.6)
 
         @g.gen

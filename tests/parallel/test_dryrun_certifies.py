@@ -1,8 +1,7 @@
 """The multichip dryrun must certify NUMBERS, not shapes.
 
-Round-3 verdict: `dryrun_multichip` asserted only isfinite/shape, so the
-MULTICHIP_r*.json artifact would stay ok=true even if a collective
-regression skewed every LML by 2x. The dryrun now asserts oracle/dense
+A dryrun that asserted only isfinite/shape would stay green even if a
+collective regression skewed every LML by 2x. The dryrun now asserts oracle/dense
 agreement for every driver; this test proves the certification has
 teeth by breaking a collective on purpose — a sharded LML that counts
 only ONE shard's probability mass (exactly what a dropped psum does)

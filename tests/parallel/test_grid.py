@@ -1,4 +1,4 @@
-"""2-D (chains × particles) mesh SMC (VERDICT r1 item 9): `GridSMC` on a
+"""2-D (chains × particles) mesh SMC: `GridSMC` on a
 2×4 virtual mesh must agree with the dense single-device computation —
 per-chain LML/ESS exactly, per-chain resampling ancestor-for-ancestor."""
 

@@ -1,4 +1,4 @@
-"""Compiled-HLO inspection of the sharded paths (VERDICT r2 item 7):
+"""Compiled-HLO inspection of the sharded paths:
 regressions in collective placement must fail CI instead of silently
 serializing. On the 8-device virtual CPU mesh we assert that
 

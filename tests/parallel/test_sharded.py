@@ -7,7 +7,6 @@ import pytest
 import genjax_tpu as g
 from genjax_tpu import ChoiceMap, Regenerate, Selection, Target
 from genjax_tpu.inference.smc import systematic_resample
-from genjax_tpu.ops import fused_logsumexp, maybe_fused_logsumexp
 from genjax_tpu.parallel import (
     ShardedSMC,
     particle_mesh,
@@ -109,22 +108,3 @@ class TestShardedChains:
         )
         xs = finals.get_choices()["x"]
         assert jnp.allclose(jnp.mean(xs), 0.5, atol=0.1)
-
-
-class TestPallasKernels:
-    def test_fused_logsumexp_interpret(self):
-        from jax.scipy.special import logsumexp
-
-        for n in [100, 65536, 100001]:
-            x = jax.random.normal(jax.random.key(0), (n,)) * 3
-            assert jnp.allclose(
-                fused_logsumexp(x, interpret=True), logsumexp(x), atol=1e-4
-            )
-
-    def test_maybe_fused_dispatch_is_exact_fallback(self):
-        # Off-TPU (and when not opted in) the dispatcher is XLA logsumexp
-        # exactly, so the flag cannot change results silently.
-        from jax.scipy.special import logsumexp
-
-        x = jax.random.normal(jax.random.key(1), (400_000,))
-        assert jnp.allclose(maybe_fused_logsumexp(x), logsumexp(x), atol=0.0)

@@ -1,7 +1,7 @@
 """Warmup adaptation over a sharded chain axis (GSPMD path).
 
 `warmup_chains` / `chees_warmup` are pure batched-jnp programs, so the
-TPU-native scale-out is compiler-driven: `jit` them with the chain axis
+accelerator-native scale-out is compiler-driven: `jit` them with the chain axis
 sharded over the mesh and XLA partitions the per-chain work and inserts
 all-reduces for the cross-chain statistics (mean acceptance, variance,
 ChEES gradient). These tests pin that contract on the 8-device virtual

@@ -1,5 +1,5 @@
 """Executable documentation: run every docstring example in the package
-under stdlib doctest (VERDICT r1 item 3; parity with the reference's
+under stdlib doctest (parity with the reference's
 xdoctest nox session, `noxfile.py:137-149`, without the extra dep).
 
 Runs on the CPU backend via tests/conftest.py. Modules with no examples

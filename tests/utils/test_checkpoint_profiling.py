@@ -1,5 +1,5 @@
-"""Checkpoint/resume and profiling aux subsystems (VERDICT r1 item 10:
-round-trip a sharded ParticleCollection through `utils/checkpoint.py` on
+"""Checkpoint/resume and profiling aux subsystems
+(round-trip a sharded ParticleCollection through `utils/checkpoint.py` on
 the 8-device mesh; assert the restored state resumes an SMC run
 bit-identically)."""
 

@@ -111,7 +111,7 @@ def collect_pages():
     )
     for name, title in (
         ("ARCHITECTURE.md", "Architecture"),
-        ("PERFORMANCE.md", "Performance"),
+        ("PERF.md", "Performance"),
         ("PARITY.md", "Reference parity"),
         ("MIGRATION.md", "Migrating from genjax"),
     ):

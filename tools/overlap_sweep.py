@@ -4,7 +4,7 @@
 For each (repo file, reference file) pair: strip docstrings/comments,
 drop import/signature/decorator lines, keep normalized code lines longer
 than 30 chars, and report the fraction of repo lines that appear verbatim
-in the reference file. Gate (VERDICT round 2): <15% per rewritten file.
+in the reference file. Gate: <15% per rewritten file.
 
 Usage: python tools/overlap_sweep.py [repo_file ref_file]...
 With no args, runs the default audit pairs.
